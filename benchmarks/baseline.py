@@ -1,7 +1,7 @@
 """Single-core C++ DCLA baseline measurement protocol.
 
 Shared by ``bench.py`` and ``benchmarks/suite.py`` so every reported speedup
-uses the same defensible methodology (VERDICT r2 item 5):
+uses the same defensible methodology:
 
 * the oracle binary is pinned to one core (``taskset -c``) when available, so
   shared-CPU load does not migrate it mid-run;
@@ -9,7 +9,7 @@ uses the same defensible methodology (VERDICT r2 item 5):
   samples are recorded next to the median in the results artifact;
 * the cache digest includes a host fingerprint (CPU model + core count) and
   the sha256 of the compiled binary, so a committed cache can never leak one
-  machine's rate onto another (ADVICE r2 item 1).
+  machine's rate onto another.
 
 The binary itself is the clean-room DCLA oracle (``native/baseline_dcla.cpp``,
 mirroring the reference's stage-1 ``db_builder.cpp:220-237`` enumeration +
@@ -69,9 +69,9 @@ def run_oracle(P_sub, k: int, sigma: int, eps, *, pin: bool = True) -> dict:
                          float(eps), 0)
     argv = (_pin_prefix() if pin else []) + [ensure_binary()]
     # same malloc tuning the framework applies to itself
-    # (ipk_tpu/utils/malloc_tune.py): first-touch page faults run ~30 MB/s
-    # on these sandboxes; keep the oracle's big vectors in the sbrk heap so
-    # its timer measures enumeration, not the kernel's fault path
+    # (ipk_tpu/utils/malloc_tune.py): keep the oracle's big vectors in the
+    # sbrk heap so its timer measures enumeration, not first-touch page
+    # faults
     env = dict(os.environ,
                MALLOC_MMAP_THRESHOLD_=str(2**31 - 1),
                MALLOC_TRIM_THRESHOLD_=str(2**31 - 1),
@@ -83,7 +83,7 @@ def run_oracle(P_sub, k: int, sigma: int, eps, *, pin: bool = True) -> dict:
 
 #: recorded sample spread above this bound triggers a re-measure (shared-CPU
 #: interference); persistently noisier measurements are recorded with
-#: ``spread_ok: false`` so the artifact flags itself (VERDICT r3 item 8)
+#: ``spread_ok: false`` so the artifact flags itself
 MAX_SPREAD = 0.25
 
 
@@ -92,7 +92,7 @@ def measure_rate(P_sub, k: int, sigma: int, eps, *, reps: int = 5,
                  max_rounds: int = 3) -> dict:
     """Median single-core tuples/s over ``reps`` pinned runs.
 
-    Protocol (VERDICT r3 item 8): one WARM-UP run is executed and discarded
+    Protocol: one WARM-UP run is executed and discarded
     (page cache / frequency ramp), then ``reps`` timed runs; if the relative
     spread (max-min)/median exceeds ``max_spread`` the whole measurement is
     repeated up to ``max_rounds`` times and the tightest round wins.

@@ -1,7 +1,7 @@
-"""ipk_tpu: a TPU-native phylo-k-mer database construction framework.
+"""ipk_tpu: an accelerator-native phylo-k-mer database construction framework.
 
 A from-scratch rebuild of the capabilities of phylo42/IPK (reference surveyed
-in SURVEY.md) designed for TPU hardware: the divide-and-conquer k-mer
+in SURVEY.md) designed for accelerators (an NVIDIA H100): the divide-and-conquer k-mer
 enumeration becomes a dense, masked, level-wise combine over the candidate
 space executed by XLA/Pallas; per-branch hash maps become dense max
 accumulators; branches shard data-parallel over a device mesh.

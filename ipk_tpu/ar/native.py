@@ -1,4 +1,4 @@
-"""Native TPU ancestral reconstruction: Felsenstein pruning + empirical-Bayes
+"""Native ancestral reconstruction on the device: Felsenstein pruning + empirical-Bayes
 marginal posteriors in JAX.
 
 The reference shells out to raxml-ng for this step — its only multi-core
@@ -19,7 +19,7 @@ raxml-ng's ``--opt-model on --opt-branches on``. Either way posteriors are
 *not* numerically comparable to a raxml-ng run (different optimizer paths),
 only structurally.
 
-Computation: standard two-pass algorithm on the MXU.
+Computation: standard two-pass algorithm as batched matmuls.
 * inside pass (postorder): per-category partial likelihoods
   ``L_v[c, site, state]``, leaves one-hot (all-ones for gaps/ambiguity —
   the reference treats ambiguity as gaps during AR, ``alignment.cpp:217-224``),
@@ -47,6 +47,11 @@ from ..alignment import Alignment
 
 __all__ = ["gtr_eigendecomposition", "gamma_category_rates",
            "ancestral_posteriors", "run_native_ar", "empirical_frequencies"]
+
+#: f32 matmuls at full precision: a GPU may otherwise multiply in TF32
+#: (about three decimal digits), and the posteriors would drift from the
+#: CPU's — a survivor set depends on which side of the threshold they fall
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def empirical_frequencies(align: Alignment, traits: SeqTraits) -> np.ndarray:
@@ -154,7 +159,8 @@ def ancestral_posteriors(tree: PhyloTree, align: Alignment,
     @jax.jit
     def trans(t_scaled):
         """P(t) for one scaled branch length: [σ, σ], rows = from-state."""
-        return (U_j * jnp.exp(lam_j * t_scaled)[None, :]) @ Ui_j
+        return jnp.matmul(U_j * jnp.exp(lam_j * t_scaled)[None, :], Ui_j,
+                          precision=_HIGHEST)
 
     # transition matrices for every (node, category)
     bl = np.array([n.branch_length for n in nodes], dtype=np.float32)
@@ -169,7 +175,8 @@ def ancestral_posteriors(tree: PhyloTree, align: Alignment,
     @jax.jit
     def child_message(P_child, L_child):
         # [cat, S, σ] x [cat, σ, σ] -> [cat, S, σ]: sum over child states
-        return jnp.einsum("cxy,csy->csx", P_child, L_child)
+        return jnp.einsum("cxy,csy->csx", P_child, L_child,
+                          precision=_HIGHEST)
 
     @jax.jit
     def normalize(Lv):
@@ -200,7 +207,8 @@ def ancestral_posteriors(tree: PhyloTree, align: Alignment,
     @jax.jit
     def down_message(P_child, upper):
         # [cat, S, σ(parent)] through P_child^T -> [cat, S, σ(child)]
-        return jnp.einsum("cxy,csx->csy", P_child, upper)
+        return jnp.einsum("cxy,csx->csy", P_child, upper,
+                          precision=_HIGHEST)
 
     for v in nodes[::-1]:           # preorder-ish: parents before children
         i = index[id(v)]

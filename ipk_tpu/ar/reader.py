@@ -3,7 +3,7 @@
 Counterpart of the reference's lazy ``raxmlng_reader`` (``ipk/src/ar.cpp:144-270``)
 and ``proba_matrix`` (``ipk/src/proba_matrix.{h,cpp}``). The reference seeks and
 CSV-parses one node block at a time because its pipeline is sequential and
-memory-frugal; the TPU pipeline instead wants the whole [nodes, sites, σ]
+memory-frugal; the device pipeline instead wants the whole [nodes, sites, σ]
 tensor resident at once (it is the *input* of the batched dense kernel), so we
 parse the entire TSV in one vectorized pass.
 

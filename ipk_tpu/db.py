@@ -2,7 +2,7 @@
 
 Counterpart of ``i2l::phylo_kmer_db`` (contract inferred from IPK call sites,
 SURVEY.md §2.2). Unlike the reference's hash map + kmer_order vector, this is
-array-backed (struct-of-arrays) because the TPU builder produces the database
+array-backed (struct-of-arrays) because the device builder produces the database
 as flat sorted arrays in one shot; a key→row dict is built lazily for
 ``search``.
 """

@@ -1,7 +1,7 @@
 """Multi-chip sharded build step: branch-data-parallel enumeration +
 distributed mutual-information reduction.
 
-This is the TPU-native equivalent of the checklist in SURVEY.md §2.3: the
+This is the device-native equivalent of the checklist in SURVEY.md §2.3: the
 branch loop the reference left as a commented-out OpenMP pragma
 (``db_builder.cpp:602-605``) becomes ``shard_map`` over the "branch" mesh
 axis; the mif0 filter pass (``filter.cpp:60-119``) becomes two XLA collective
@@ -54,7 +54,7 @@ def _mi_reduce(A_loc, *, total_num_groups, threshold):
     (``filter.cpp:60-119`` as two psums over the branch axis). Exact per
     key — mutual information depends only on that key's entries — so it is
     valid on ANY contiguous key slice, which is what makes the key-batched
-    device-MI path (VERDICT r3 item 6) possible. Returns fv over this
+    device-MI path possible. Returns fv over this
     device's key-axis shard of the slice."""
     mask = jnp.isfinite(A_loc)
     lin = jnp.where(mask, jnp.minimum(10.0 ** A_loc.astype(jnp.float32), 1.0),
@@ -159,7 +159,7 @@ def sharded_batched_build_step(mesh: Mesh, *, k: int, sigma: int,
                                ghosts_per_group: int, total_num_groups: int,
                                threshold: float, key_batches: int,
                                block_w: int = 32):
-    """Key-batched device-MI build step (VERDICT r3 item 6): enumeration AND
+    """Key-batched device-MI build step: enumeration AND
     the mutual-information reduction stay on device even when the dense
     accumulator does not fit HBM in one piece.
 

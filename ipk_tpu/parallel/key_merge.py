@@ -2,7 +2,7 @@
 
 The reference aggregates stage-1 survivors through per-branch hash maps and a
 ``key % 32`` spill/merge (``branch_group.cpp:88-107``, ``db_builder.cpp:
-340-458``). The TPU-native equivalent implemented here keeps the whole merge
+340-458``). The device-native equivalent implemented here keeps the whole merge
 on device:
 
     per branch shard:  (cl, cr, score) survivor tuples over local groups

@@ -1,6 +1,6 @@
 """Device mesh setup and sharding helpers.
 
-TPU-native replacement for the reference's (nonexistent) parallelism
+Accelerator-native replacement for the reference's (nonexistent) parallelism
 (SURVEY.md §2.3: the reference is single-process; its only sharding structure
 is per-branch grouping + ``key % 32`` k-mer batches). Here:
 
@@ -12,7 +12,9 @@ is per-branch grouping + ``key % 32`` k-mer batches). Here:
   with XLA collectives instead of spill-to-disk hash maps.
 
 Multi-host: ``jax.distributed.initialize`` + the same mesh spanning all
-processes; collectives ride ICI within a slice and DCN across slices.
+processes; XLA hands the collectives to NCCL. Every card of a host reaches
+every other at the same rate (NVLink, all to all), so the mesh follows the
+algorithm alone.
 """
 
 from __future__ import annotations

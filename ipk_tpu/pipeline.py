@@ -1,4 +1,4 @@
-"""End-to-end database build: alignment → tree extension → AR → TPU build.
+"""End-to-end database build: alignment → tree extension → AR → device build.
 
 Counterpart of the reference driver ``ipk/src/main.cpp:129-199``
 (``build_database``) — the single entry the CLI calls. Stage order and
@@ -106,7 +106,7 @@ def build_database(p: BuildParams) -> Optional[BuildResult]:
     aln.save_alignment(extended, fasta_path, "fasta")
     aln.save_alignment(extended, phylip_path, "phylip")
 
-    # L4: ancestral reconstruction (native TPU, subprocess, or --ar-dir replay)
+    # L4: ancestral reconstruction (native JAX, subprocess, or --ar-dir replay)
     if p.ar_binary == "native" and not p.ar_dir:
         from .ar.native import run_native_ar
         probs_file, ar_tree_file = run_native_ar(

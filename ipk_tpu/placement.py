@@ -13,10 +13,10 @@ log10 score for each branch where present, and ``log10((omega/sigma)^k)`` for
 branches where absent. Branches are ranked by total log score; output is
 jplace v3 with edge numbers = original-tree postorder ids.
 
-Fidelity is quantified, not asserted (VERDICT r3 item 7):
+Fidelity is quantified, not asserted:
 ``tests/test_placement_fidelity.py`` checks both scorers below against an
 independent from-first-principles implementation of the published formula —
-100% top-1 agreement on the fixture set, host totals exact to f64, TPU
+100% top-1 agreement on the fixture set, host totals exact to f64, device
 totals within f32 accumulation tolerance. Remaining deviations from the
 EPIK binary, documented there: no ``--mu`` DB subsetting at load (EPIK
 applies mu downstream; the DB carries the full MI order) and no implicit
@@ -112,7 +112,7 @@ class PlacementIndex:
         return self.branch_ids, total, len(keys)
 
 
-class TpuPlacementIndex:
+class DevicePlacementIndex:
     """Device-resident placement index for batch serving.
 
     The DB becomes a dense score matrix ``M[K+2, B]`` in HBM: row r<K holds
@@ -163,7 +163,7 @@ class TpuPlacementIndex:
         def score_topk(M_dev, rows, top):
             # rank on device and ship only the top-k (serving transfers
             # collapse from [Q, B] to [Q, top] — the difference between
-            # being PCIe/tunnel-bound and HBM-bound)
+            # being transfer-bound and memory-bound)
             totals = M_dev[rows].sum(axis=1)
             vals, idx = jax.lax.top_k(totals, top)
             return vals, idx
@@ -229,8 +229,8 @@ class TpuPlacementIndex:
         h = self.host
         Q = len(sequences)
         keys_pad, valid_pad = self._window_keys(sequences)
-        # key lookup on host (uint64 searchsorted lowers pathologically on
-        # TPU); the device does the expensive [Q, W, B] gather + reduction
+        # key lookup on host (uint64 keys need 64-bit arithmetic, which stays
+        # off the device); the device does the expensive [Q, W, B] gather + reduction
         rows = self._rows(keys_pad, valid_pad)
         totals = np.empty((Q, len(h.branch_ids)), dtype=np.float32)
         bq = min(device_batch, max(Q, 1))
@@ -301,12 +301,13 @@ def place_queries(db: PhyloKmerDB, queries: Iterable[Tuple[str, str]],
     """Rank branches for each (name, sequence) query. Returns jplace-style
     placement dicts.
 
-    engine: "host" (per-query numpy), "tpu" (device batch scorer), or "auto"
+    engine: "host" (per-query numpy), "device" (device batch scorer), or
+    "auto"
     (device for large query sets). Both produce the same totals.
     """
     queries = list(queries)
     if engine == "auto":
-        engine = "tpu" if len(queries) >= 64 else "host"
+        engine = "device" if len(queries) >= 64 else "host"
     placements = []
     if engine == "host":
         index = PlacementIndex(db)
@@ -317,10 +318,10 @@ def place_queries(db: PhyloKmerDB, queries: Iterable[Tuple[str, str]],
             placements.append(_rank(name, branch_ids,
                                     totals.astype(np.float32), top))
         return placements
-    tpu = TpuPlacementIndex(db)
+    index = DevicePlacementIndex(db)
     for start in range(0, len(queries), batch_size):
         chunk = queries[start:start + batch_size]
-        ids, scores, _ = tpu.place_batch_topk([s for _, s in chunk], top=top)
+        ids, scores, _ = index.place_batch_topk([s for _, s in chunk], top=top)
         if ids.shape[1] == 0:
             continue
         for qi, (name, _) in enumerate(chunk):

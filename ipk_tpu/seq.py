@@ -1,6 +1,6 @@
 """Sequence alphabets and k-mer codec.
 
-TPU-first counterpart of the reference's compile-time ``i2l::seq_traits``
+Accelerator-first counterpart of the reference's compile-time ``i2l::seq_traits``
 (reference: SURVEY.md §2.2; usage pinned by ``ipk/src/ar.cpp:221-240``,
 ``ipk/src/pk_compute.cpp:96-105``, ``ipk/src/alignment.cpp:149,210,306``).
 Unlike the reference — which compiles three binaries (ipk-dna/ipk-aa/ipk-aa-pos,
@@ -81,7 +81,7 @@ class SeqTraits:
         """char -> code or None if unsupported (cf. ``alignment.cpp:210``)."""
         return self.char_to_code().get(ch)
 
-    # ---- vectorized helpers (used by the dense TPU path) ----
+    # ---- vectorized helpers (used by the dense device path) ----
 
     def codes_lut(self) -> np.ndarray:
         """256-entry byte->code LUT; unsupported/gap bytes map to -1."""

@@ -403,7 +403,7 @@ class BatchLoader:
         head = self._f.read(len(_MAGIC))
         if head != _MAGIC:
             # close before raising: dump_database probes compressed files
-            # through this exception, which must not leak the fd (ADVICE r3)
+            # through this exception, which must not leak the fd
             self._f.close()
             raise RuntimeError(
                 f"BatchLoader needs an uncompressed .ipk file: {filename}")

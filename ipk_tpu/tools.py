@@ -70,10 +70,30 @@ def diff_databases(file1: str, file2: str, verbose: bool = False,
 
 
 def _score_diffs(a, b, eps: float):
-    """Vectorized per-(kmer, branch) comparison: expand each DB to parallel
-    (key, branch, score) streams sorted by (key, branch), then merge-compare.
-    Replaces r2's python dict-of-dicts walk (O(E) small objects — the thing
-    that fell over first on large DBs)."""
+    """Per-(kmer, branch) score comparison → [(key, branch, a, b)] with NaN
+    for an entry missing on one side.
+
+    Two DBs in the same row and entry layout (the common case: builds of
+    the same inputs) compare column by column, without a sort — at a
+    marker-gene DB's ~1e9 entries the general path below needs tens of GB
+    and minutes. Otherwise each DB is expanded to (key, branch, score)
+    streams sorted by (key, branch) and merge-compared."""
+    if (a.size() == b.size() and a.num_entries() == b.num_entries()
+            and np.array_equal(a.keys, b.keys)
+            and np.array_equal(a.offsets, b.offsets)
+            and np.array_equal(a.branches, b.branches)):
+        sa = np.asarray(a.scores, dtype=np.float32)
+        sb = np.asarray(b.scores, dtype=np.float32)
+        step = 1 << 26                      # bounds the f64 temporaries
+        bad = np.concatenate([np.zeros(0, np.int64)] + [
+            i0 + np.flatnonzero(~(np.abs(
+                sa[i0:i0 + step].astype(np.float64)
+                - sb[i0:i0 + step].astype(np.float64)) <= eps))
+            for i0 in range(0, len(sa), step)])
+        rows = np.searchsorted(a.offsets, bad, side="right") - 1
+        return [(int(a.keys[r]), int(a.branches[i]), float(sa[i]),
+                 float(sb[i])) for r, i in zip(rows, bad)]
+
     def stream(db):
         counts = np.diff(db.offsets)
         rk = np.repeat(np.asarray(db.keys, dtype=np.uint64), counts)
@@ -127,7 +147,7 @@ def diff_plain_text(file1: str, file2: str, eps: float = 1e-3,
     threshold = (a.omega / sigma) ** a.kmer_size
 
     # same vectorized (key, branch) merge-compare as _score_diffs, in
-    # linear space — no per-entry Python objects (r4 verdict weak #3)
+    # linear space — no per-entry Python objects
     def stream(db):
         counts = np.diff(db.offsets)
         rk = np.repeat(np.asarray(db.keys, dtype=np.uint64), counts)
@@ -208,23 +228,35 @@ def dump_database(filename: str, out: TextIO) -> None:
 
 
 def _dump_rows(out: TextIO, tree, traits, kmer_size, keys, counts, branches,
-               scores) -> None:
+               scores, block_entries: int = 1 << 20) -> None:
     """Streaming per-row formatter (a few µs/key at 500k keys; the
     postorder→preorder node resolution is a precomputed lookup array and
     the linear scores a single vectorized pow). An np.char-vectorized
     line builder was measured 2.3× SLOWER — numpy string ufuncs lose to
-    CPython f-strings — so the plain write loop stays."""
+    CPython f-strings — so the plain write loop stays. Rows go in blocks of
+    about ``block_entries`` entries, so the Python lists the loop reads stay
+    small: whole-DB lists took ~70 GB of host memory at 1e9 entries."""
     branches = np.asarray(branches)
     lut_size = int(branches.max()) + 1 if len(branches) else 1
     lut = np.full(lut_size, -1, dtype=np.int64)
     for node in tree.nodes_postorder():
         if 0 <= node.postorder_id < lut_size:
             lut[node.postorder_id] = node.preorder_id
-    pre = lut[branches].tolist()
-    lin = np.power(10.0, np.asarray(scores, dtype=np.float64)).tolist()
-    e = 0
-    for row, key in enumerate(keys):
-        out.write(decode_kmer(int(key), kmer_size, traits) + "\n")
-        for _ in range(int(counts[row])):
-            out.write(f"\t{lin[e]:g}\t{pre[e]}\n")
-            e += 1
+    offsets = np.zeros(len(keys) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    r0 = 0
+    while r0 < len(keys):
+        # the rows whose entries fit the block (at least one row)
+        r1 = max(r0 + 1, int(np.searchsorted(
+            offsets, offsets[r0] + block_entries, side="right")) - 1)
+        e0, e1 = offsets[r0], offsets[r1]
+        pre = lut[branches[e0:e1]].tolist()
+        lin = np.power(10.0, np.asarray(scores[e0:e1],
+                                        dtype=np.float64)).tolist()
+        e = 0
+        for row in range(r0, r1):
+            out.write(decode_kmer(int(keys[row]), kmer_size, traits) + "\n")
+            for _ in range(int(counts[row])):
+                out.write(f"\t{lin[e]:g}\t{pre[e]}\n")
+                e += 1
+        r0 = r1

@@ -2,7 +2,7 @@
 
 Host-side counterpart of ``i2l::phylo_tree`` (contract inferred from IPK call
 sites, SURVEY.md §2.2) plus the IPK tree-extension layer
-(``ipk/src/extended_tree.cpp``). Trees are small host objects; the TPU pipeline
+(``ipk/src/extended_tree.cpp``). Trees are small host objects; the device pipeline
 only consumes flat arrays derived from them (ghost grouping vectors, branch
 ids, tree index).
 

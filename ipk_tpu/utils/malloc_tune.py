@@ -1,17 +1,15 @@
 """glibc malloc tuning: retain freed pages in the heap.
 
-On the deployment sandboxes this framework targets, first-touch page faults
-on fresh mmap'd allocations run at ~30 MB/s (measured: a 256 MB numpy copy
-costs 10-20 s the first time, 0.2 s into already-touched pages).  Every
-device→host transfer, concatenate, gather and serialize buffer in a build
-allocates hundreds of MB, so the fault tax dominates the host stages.
+On hosts where first-touch page faults on fresh mmap'd allocations are
+slow, every device→host transfer, concatenate, gather and serialize buffer
+in a build (hundreds of MB each) pays that fault tax again.  Whether the
+GPU host pays it is not measured.
 
 glibc serves allocations above M_MMAP_THRESHOLD with fresh mmap's and
 returns them to the kernel on free — paying the fault storm every time.
 Raising the threshold and disabling trim keeps big buffers in the sbrk
 heap, where pages stay resident after free and are reused already-touched:
-the tax is paid once per high-water mark instead of once per allocation
-(measured: repeated 256 MB copies drop from ~10 s to ~0.07 s).
+the tax is paid once per high-water mark instead of once per allocation.
 
 Cost: the process RSS stays at its peak working set.  For build/bench/CLI
 processes that exit when done this is the right trade; opt out with

@@ -2,13 +2,13 @@
 
 The ``.so`` artifacts are intentionally NOT committed (a binary built with
 host-specific ISA flags can SIGILL on other CPUs, and its libm rounding can
-perturb last-bit f32 filter values across environments — ADVICE r3). Instead
+perturb last-bit f32 filter values across environments). Instead
 each loader builds its library from source on first use with portable flags
 (``-O3 -mtune=generic``), so the artifact always matches the local toolchain.
 
 ``IPK_TPU_NO_NATIVE`` is honored on EVERY call (only the successfully loaded
 CDLL handle is cached), so callers can force the pure-Python paths at any
-point without reaching into private module state (ADVICE r3).
+point without reaching into private module state.
 """
 
 from __future__ import annotations

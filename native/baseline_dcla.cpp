@@ -17,7 +17,7 @@
 //   then G*S*sigma float32 log10 scores.
 // stdout: one JSON line {"tuples": N, "ms": T, "entries": M}. With emit=1,
 // the merged per-group survivor sets follow (the correctness-gate mode:
-// tests assert bit-equality of the TPU dense and sparse paths against this
+// tests assert bit-equality of the device dense and sparse paths against this
 // independent implementation): per group a line "G <gid> <n>", then n lines
 // "<code> <score-bits>" (f32 score as its raw uint32 bits — exact),
 // ascending by code.
@@ -103,7 +103,7 @@ class Enumerator {
         // per-side breaks are structurally inert — they are kept so this
         // oracle's control flow matches the reference's loop one-for-one
         // and the vs_baseline ratios cannot be accused of a softened oracle
-        // (VERDICT r3 item 8).
+        //.
         const bool sort_left = left.size() < right.size();
         auto& small = sort_left ? left : right;
         auto& large = sort_left ? right : left;

@@ -2,7 +2,7 @@
 //
 // Native counterpart of the reference's strasser CSVReader usage
 // (ipk/src/ar.cpp:191-270). The reference parses lazily one node block at a
-// time; the TPU pipeline wants the whole [nodes, sites, sigma] tensor in one
+// time; the device pipeline wants the whole [nodes, sites, sigma] tensor in one
 // pass, and these files reach gigabytes for large trees, so parsing speed
 // matters. This is a single-pass mmap + std::from_chars parser exposed with a
 // C ABI for ctypes (ipk_tpu/ar/reader.py), ~30-60x faster than the Python

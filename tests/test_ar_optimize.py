@@ -169,7 +169,7 @@ def test_run_native_ar_optimized_artifacts(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# r2: quantitative fitness of the native AR optimizer (VERDICT r1 item 8).
+# r2: quantitative fitness of the native AR optimizer.
 # raxml-ng is not available in this environment, so the anchor is simulation
 # recovery: sequences simulated under known GTR+Γ parameters, optimization
 # started from perturbed branch lengths must (a) reach at least the true

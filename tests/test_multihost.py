@@ -24,11 +24,10 @@ _WRAPPER = """\
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("IPK_TPU_INTERPRET", "1")
 import jax
 jax.config.update("jax_platforms", "cpu")
-from ipk_tpu.cli import ipk
-ipk(sys.argv[1:], standalone_mode=True)
+from ipk_tpu.cli import main
+sys.exit(main(sys.argv[1:]))
 """
 
 

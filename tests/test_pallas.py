@@ -1,10 +1,30 @@
-"""Fused Pallas kernel vs the jnp dense path (interpret mode on CPU)."""
+"""The Triton dense combine vs the jnp dense path (interpret mode on CPU;
+``test_gpu.py`` runs the compiled kernel on the card)."""
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 
 from ipk_tpu.core import dense
-from ipk_tpu.core.pallas_kernels import accumulate_ghosts_fused, combine_max
+from ipk_tpu.core.pallas_kernels import combine_max
+
+
+def accumulate_ghosts_fused(P_all, prefix_all, eps, *, k, sigma,
+                            with_count=False, **tiles):
+    """Halves in XLA, combine in the Triton kernel (interpret mode):
+    P_all [G, S, sigma] → A[G, sigma^k] (+ per-ghost tuple counts)."""
+    halves = jax.vmap(functools.partial(dense.masked_halves, k=k,
+                                        sigma=sigma), in_axes=(0, 0, None))
+    L, R = halves(P_all, prefix_all, eps)
+    out = combine_max(L, R, eps, with_count=with_count, interpret=True,
+                      **tiles)
+    G = P_all.shape[0]
+    if with_count:
+        A, counts = out
+        return A.reshape(G, -1), counts
+    return out.reshape(G, -1)
 
 
 def make_inputs(rng, G, S, sigma=4):
@@ -34,8 +54,8 @@ def test_masked_halves_reconstruct_window_block():
     np.testing.assert_array_equal(T, T_ref)
 
 
-@pytest.mark.parametrize("k,block_w", [(4, 4), (6, 8), (7, 16), (8, 64)])
-def test_fused_matches_jnp_path(k, block_w):
+@pytest.mark.parametrize("k,block_i", [(4, 4), (6, 8), (7, 16), (8, 64)])
+def test_fused_matches_jnp_path(k, block_i):
     rng = np.random.default_rng(k)
     sigma, G, S = 4, 6, 20
     P_all, prefix_all = make_inputs(rng, G, S)
@@ -43,8 +63,8 @@ def test_fused_matches_jnp_path(k, block_w):
     A_ref = np.asarray(dense.accumulate_ghosts(P_all, prefix_all, eps,
                                                k=k, sigma=sigma))
     A = np.asarray(accumulate_ghosts_fused(P_all, prefix_all, eps, k=k,
-                                           sigma=sigma, block_w=block_w,
-                                           interpret=True))
+                                           sigma=sigma, block_i=block_i,
+                                           block_j=2 * block_i))
     np.testing.assert_array_equal(A, A_ref)
 
 
@@ -56,13 +76,15 @@ def test_fused_counts_match():
     _, counts_ref = dense.accumulate_ghosts(P_all, prefix_all, eps, k=k,
                                             sigma=sigma, with_count=True)
     A, counts = accumulate_ghosts_fused(P_all, prefix_all, eps, k=k,
-                                        sigma=sigma, block_w=8,
-                                        with_count=True, interpret=True)
+                                        sigma=sigma, block_i=8, block_j=16,
+                                        with_count=True)
     np.testing.assert_array_equal(np.asarray(counts, dtype=np.int64),
                                   np.asarray(counts_ref, dtype=np.int64))
 
 
 def test_fused_aa_alphabet():
+    """σ=20: candidate axes (20, 400) are not multiples of the tile and are
+    padded with inert -inf columns."""
     rng = np.random.default_rng(3)
     k, sigma, G, S = 3, 20, 2, 12
     P_all, prefix_all = make_inputs(rng, G, S, sigma)
@@ -70,27 +92,31 @@ def test_fused_aa_alphabet():
     A_ref = np.asarray(dense.accumulate_ghosts(P_all, prefix_all, eps,
                                                k=k, sigma=sigma))
     A = np.asarray(accumulate_ghosts_fused(P_all, prefix_all, eps, k=k,
-                                           sigma=sigma, interpret=True))
+                                           sigma=sigma))
     np.testing.assert_array_equal(A, A_ref)
 
 
 def test_combine_max_window_padding():
-    """W not divisible by block_w: padded windows must not contribute."""
+    """Candidate axes not divisible by the tile (nl=12, nr=20 against
+    8x16 tiles): padded columns must not contribute, and an odd window
+    count needs no padding at all (the window loop runs in the kernel)."""
     rng = np.random.default_rng(9)
-    G, W, nl, nr = 2, 5, 16, 16
+    G, W, nl, nr = 2, 5, 12, 20
     L = rng.normal(size=(G, W, nl)).astype(np.float32)
     R = rng.normal(size=(G, W, nr)).astype(np.float32)
     eps = np.float32(-100.0)
-    A = np.asarray(combine_max(L, R, eps, block_w=4, interpret=True))
+    A, counts = combine_max(L, R, eps, block_i=8, block_j=16,
+                            with_count=True, interpret=True)
     expected = (L[:, :, :, None] + R[:, :, None, :]).max(axis=1)
-    np.testing.assert_array_equal(A, expected)
+    np.testing.assert_array_equal(np.asarray(A), expected)
+    np.testing.assert_array_equal(np.asarray(counts), [W * nl * nr] * G)
 
 
 def test_combine_max_nr_blocking():
-    """Candidate-pair spaces above the 1 MB VMEM tile budget are gridded
-    over the nr axis; results and counts must match the un-gridded path
-    (here forced small via a sliced L against a wide R, as the key-batched
-    k=12 build produces)."""
+    """A wide candidate-pair space is gridded into many tiles along both
+    axes (here a key-batch-like slice of L against a wide R, as the
+    key-batched k=10 build produces); values and counts must match the
+    plain XLA path."""
     import jax.numpy as jnp
     from ipk_tpu.core.dense import combine_max_jnp
 
@@ -105,40 +131,12 @@ def test_combine_max_nr_blocking():
         L.append(np.asarray(Lg))
         R.append(np.asarray(Rg))
     L, R = jnp.asarray(np.stack(L)), jnp.asarray(np.stack(R))
-    # nl * nr * 4 = 1024 * 1024 * 4 = 4 MB > 1 MB budget -> nr gridding
+    # one key batch of four: 256 x 1024 candidates -> a 4 x 8 tile grid
+    L = L[:, :, 256:512]
     A_ref = np.asarray(combine_max_jnp(L, R, eps))
-    A, counts = combine_max(L, R, eps, block_w=8, with_count=True,
-                            interpret=True)
+    A, counts = combine_max(L, R, eps, block_i=64, block_j=128,
+                            with_count=True, interpret=True)
     np.testing.assert_array_equal(np.asarray(A), A_ref)
     count_ref = int((np.asarray(L)[:, :, :, None] + np.asarray(R)[:, :, None, :]
                      > eps).sum())
     assert int(np.asarray(counts).astype(np.int64).sum()) == count_ref
-
-
-@pytest.mark.parametrize("block_w", [8, 16])
-def test_split_accumulator_bitequal(block_w):
-    """IPK_TPU_SPLIT_ACC (even/odd window accumulator halves — an ILP
-    experiment, measured slower on chip and default-off) must stay
-    bit-identical in values AND counts."""
-    import functools
-    import jax
-    import jax.numpy as jnp
-    rng = np.random.default_rng(17)
-    k, sigma = 6, 4
-    P, prefix = make_inputs(rng, 3, 37 + k - 1, sigma)
-    eps = eps_for(1.5, sigma, k)
-    halves = jax.vmap(
-        functools.partial(dense.masked_halves, k=k, sigma=sigma),
-        in_axes=(0, 0, None))
-    L, R = halves(jnp.asarray(P), jnp.asarray(prefix), eps)
-    A0, c0 = combine_max(L, R, eps, block_w=block_w, with_count=True,
-                         interpret=True, split_acc=False)
-    A1, c1 = combine_max(L, R, eps, block_w=block_w, with_count=True,
-                         interpret=True, split_acc=True)
-    np.testing.assert_array_equal(np.asarray(A0), np.asarray(A1))
-    np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
-    B0 = combine_max(L, R, eps, block_w=block_w, interpret=True,
-                     split_acc=False)
-    B1 = combine_max(L, R, eps, block_w=block_w, interpret=True,
-                     split_acc=True)
-    np.testing.assert_array_equal(np.asarray(B0), np.asarray(B1))

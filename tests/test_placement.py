@@ -4,10 +4,9 @@ import json
 import os
 
 import numpy as np
-from click.testing import CliRunner
 
 from ipk_tpu import serialize
-from ipk_tpu.cli import ipk
+from ipk_tpu.cli import main
 from ipk_tpu.pipeline import BuildParams, build_database
 from ipk_tpu.placement import PlacementIndex, place_queries
 from ipk_tpu.seq import decode_kmer, DNA
@@ -66,11 +65,11 @@ def test_place_queries_weights_sum_to_one(tmp_path):
         assert len(pl["p"]) <= 3
 
 
-def test_place_cli_jplace(tmp_path):
+def test_place_cli_jplace(tmp_path, capsys):
     out, fasta = build_db(tmp_path)
     jp = str(tmp_path / "out.jplace")
-    r = CliRunner().invoke(ipk, ["place", out, fasta, "-o", jp])
-    assert r.exit_code == 0, r.output
+    assert main(["place", out, fasta, "-o", jp]) == 0
+    assert "Placed" in capsys.readouterr().out
     doc = json.load(open(jp))
     assert doc["version"] == 3
     assert doc["fields"] == ["edge_num", "likelihood", "like_weight_ratio"]
@@ -81,22 +80,22 @@ def test_place_cli_jplace(tmp_path):
     assert edge_nums <= set(int(b) for b in db.branches)
 
 
-def test_tpu_index_matches_host(tmp_path):
+def test_device_index_matches_host(tmp_path):
     """Device batch scorer must agree with the host scorer exactly."""
-    from ipk_tpu.placement import TpuPlacementIndex
+    from ipk_tpu.placement import DevicePlacementIndex
     out, fasta = build_db(tmp_path)
     db = serialize.load(out)
     host = PlacementIndex(db)
-    tpu = TpuPlacementIndex(db)
+    dev = DevicePlacementIndex(db)
     from ipk_tpu.alignment import read_fasta
     seqs = [s for _, s in read_fasta(fasta)]
     seqs.append("ACGNACGTAC")   # ambiguity
     seqs.append("ACG")          # shorter than k
-    branch_ids, totals, counts = tpu.place_batch(seqs)
+    branch_ids, totals, counts = dev.place_batch(seqs)
     np.testing.assert_array_equal(branch_ids, host.branch_ids)
     # the device-ranked serving path returns the head of the same ranking
     top = 3
-    ids_tk, scores_tk, counts_tk = tpu.place_batch_topk(seqs, top=top)
+    ids_tk, scores_tk, counts_tk = dev.place_batch_topk(seqs, top=top)
     np.testing.assert_array_equal(counts_tk, counts)
     for qi in range(len(seqs)):
         order = np.argsort(-totals[qi].astype(np.float64), kind="stable")
@@ -117,9 +116,9 @@ def test_engines_agree(tmp_path):
     from ipk_tpu.alignment import read_fasta
     queries = list(read_fasta(fasta))
     host = place_queries(db, queries, top=3, engine="host")
-    tpu = place_queries(db, queries, top=3, engine="tpu")
-    assert len(host) == len(tpu)
-    for a, b in zip(host, tpu):
+    dev = place_queries(db, queries, top=3, engine="device")
+    assert len(host) == len(dev)
+    for a, b in zip(host, dev):
         assert a["n"] == b["n"]
         assert [p[0] for p in a["p"]] == [p[0] for p in b["p"]]
         np.testing.assert_allclose([p[1] for p in a["p"]],

@@ -1,4 +1,4 @@
-"""Placement fidelity quantification (VERDICT r3 item 7).
+"""Placement fidelity quantification.
 
 ``ipk_tpu.placement`` claims to implement the published EPIK scoring scheme
 (phylo-k-mer placement: per branch, the product over query windows of the
@@ -8,7 +8,7 @@ by likelihood weight ratio). This file pins that claim to numbers:
 * an INDEPENDENT from-first-principles scorer (dict lookups, pure python,
   no shared code with ``placement.py``) implements the published formula;
 * top-1 agreement and full-ranking agreement between it and both
-  production scorers (host vectorized + TPU batch) are asserted to be 100%
+  production scorers (host vectorized + device batch) are asserted to be 100%
   on a randomized fixture set, and the likelihood-weight-ratios to agree
   within f32 tolerance.
 
@@ -21,7 +21,7 @@ pass (callers place each strand explicitly).
 import numpy as np
 
 from ipk_tpu.db import PhyloKmerDB
-from ipk_tpu.placement import PlacementIndex, TpuPlacementIndex
+from ipk_tpu.placement import PlacementIndex, DevicePlacementIndex
 from ipk_tpu.core.filter import score_threshold
 
 
@@ -100,8 +100,8 @@ def test_production_scorers_match_published_formula():
     db = make_db(rng)
     queries = make_queries(rng, db)
     host = PlacementIndex(db)
-    tpu = TpuPlacementIndex(db)
-    ids_t, totals_t, _ = tpu.place_batch(queries)
+    dev = DevicePlacementIndex(db)
+    ids_t, totals_t, _ = dev.place_batch(queries)
 
     top1_agree = 0
     for qi, seq in enumerate(queries):
@@ -111,12 +111,12 @@ def test_production_scorers_match_published_formula():
         # full per-branch totals match the published formula (f64 host)
         np.testing.assert_allclose(totals_h, ref_vec, rtol=1e-10,
                                    atol=1e-9)
-        # TPU batch scorer: f32 accumulation of the same totals
+        # device batch scorer: f32 accumulation of the same totals
         np.testing.assert_allclose(totals_t[qi], ref_vec, rtol=1e-4,
                                    atol=5e-3)
         ref_top = max(ref, key=lambda b: ref[b])
         top1_agree += int(ids_h[np.argmax(totals_h)] == ref_top)
-    # the number VERDICT r3 item 7 asks for: full agreement on the fixture
+    # the fidelity number: full agreement on the fixture
     assert top1_agree == len(queries)
 
 
@@ -128,7 +128,7 @@ def test_ranking_and_weight_ratio_agreement():
     ph = place_queries(db, [(f"q{i}", s) for i, s in enumerate(queries)],
                        top=5, engine="host")
     pt = place_queries(db, [(f"q{i}", s) for i, s in enumerate(queries)],
-                       top=5, engine="tpu")
+                       top=5, engine="device")
     assert len(ph) == len(pt)
     top1 = sum(int(a["p"][0][0] == b["p"][0][0]) for a, b in zip(ph, pt))
     assert top1 == len(ph)                      # 100% top-1 agreement

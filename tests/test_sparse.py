@@ -135,8 +135,7 @@ def test_enumerate_sparse_many_matches_per_ghost():
 def test_skewed_hot_window_bounded_redispatch():
     """One hot window the probe never samples: capacity adaptation must
     re-dispatch a bounded number of times (per-span doublings), not once
-    per chunk x span, and the result must stay overflow-free (VERDICT r2
-    item 8 telemetry contract)."""
+    per chunk x span, and the result must stay overflow-free."""
     from ipk_tpu.core import dense as dense_mod
     from ipk_tpu.core.sparse import enumerate_sparse_many, probe_caps, _spans
 

@@ -1,14 +1,14 @@
-"""The production TPU staircase kernel under test (VERDICT r3 items 3/5).
+"""The sparse path's staircase combine (``sparse._staircase_xla``) under test.
 
-Two layers of evidence, both in Pallas interpret mode on CPU (the driver's
-``kernel_parity`` suite row re-checks the same contracts on real hardware):
+Two layers of evidence:
 
-* direct: ``staircase_select_wide`` (in-kernel two-key sorts + staircase
-  extraction) against a brute-force numpy reference over the sorted views —
-  values, slot order, totals, overflow;
-* end-to-end: the full sparse enumeration with ``use_kernel=True`` must be
-  bit-identical (arrays, not sets) to the XLA fallback path that production
-  CPU builds run — the contract ``sparse._combine`` relies on.
+* direct: the staircase (XLA two-key sorts + rank-query extraction) against
+  a brute-force numpy reference over the sorted views — values, slot order,
+  totals, overflow;
+* lookup: the rank query that maps each output slot to its (row, column)
+  must be bit-equal to the membership-mask lookup it replaced
+  (``staircase_ref.staircase_membership``), including windows whose total
+  exceeds the capacity.
 """
 
 import numpy as np
@@ -16,9 +16,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from ipk_tpu.core import dense
 from ipk_tpu.core import sparse as sparse_mod
-from ipk_tpu.core.pallas_kernels import staircase_select_wide
+from staircase_ref import staircase_membership
 
 
 def brute_force_sorted(sL, cL, sR, cR, eps, cap, sort_l=True):
@@ -46,6 +45,31 @@ def brute_force_sorted(sL, cL, sR, cR, eps, cap, sort_l=True):
     return clu, cru, s_out, tot
 
 
+def staircase(sL, cL, sR, cR, eps, *, cap, sort_l=True,
+              impl=sparse_mod._staircase_xla):
+    """The production route of ``_combine_group``: R sorted (L too with
+    ``sort_l``) by the two-key order, then the staircase. Returns
+    (cl, cr, scores, totals)."""
+    cL, sL = jnp.asarray(cL), jnp.asarray(sL)
+    cR, sR = sparse_mod._sort_desc(jnp.asarray(cR), jnp.asarray(sR))
+    if sort_l:
+        cL, sL = sparse_mod._sort_desc(cL, sL)
+    (cl, cr), s, tot = impl(cL, sL, cR, sR, jnp.asarray(eps), cap=cap,
+                            shift=None)
+    return cl, cr, s, tot
+
+
+def random_lists(rng, G, W, CL, CR):
+    sL = rng.uniform(-6, 0, (G, W, CL)).astype(np.float32)
+    sR = rng.uniform(-6, 0, (G, W, CR)).astype(np.float32)
+    # duplicate some scores to exercise the code tiebreak
+    sL[:, :, ::3] = np.round(sL[:, :, ::3], 1)
+    sR[:, :, ::2] = np.round(sR[:, :, ::2], 1)
+    cL = rng.permutation(CL * W * G).astype(np.uint32).reshape(G, W, CL)
+    cR = rng.permutation(CR * W * G).astype(np.uint32).reshape(G, W, CR)
+    return sL, cL, sR, cR
+
+
 @pytest.mark.parametrize("sort_l", [True, False])
 @pytest.mark.parametrize("G,W,CL,CR,cap", [
     (1, 5, 20, 33, 128),      # tiny, unaligned widths
@@ -54,17 +78,9 @@ def brute_force_sorted(sL, cL, sR, cR, eps, cap, sort_l=True):
 ])
 def test_wide_kernel_matches_brute_force(G, W, CL, CR, cap, sort_l):
     rng = np.random.default_rng(G * 100 + CL)
-    sL = rng.uniform(-6, 0, (G, W, CL)).astype(np.float32)
-    sR = rng.uniform(-6, 0, (G, W, CR)).astype(np.float32)
-    # duplicate some scores to exercise the code tiebreak
-    sL[:, :, ::3] = np.round(sL[:, :, ::3], 1)
-    sR[:, :, ::2] = np.round(sR[:, :, ::2], 1)
-    cL = rng.permutation(CL * W * G).astype(np.uint32).reshape(G, W, CL)
-    cR = rng.permutation(CR * W * G).astype(np.uint32).reshape(G, W, CR)
+    sL, cL, sR, cR = random_lists(rng, G, W, CL, CR)
     eps = rng.uniform(-4.5, -4.0, (G, W)).astype(np.float32)
-    got = staircase_select_wide(
-        jnp.asarray(sL), jnp.asarray(cL), jnp.asarray(sR), jnp.asarray(cR),
-        jnp.asarray(eps), cap=cap, sort_l=sort_l, interpret=True)
+    got = staircase(sL, cL, sR, cR, eps, cap=cap, sort_l=sort_l)
     ref = brute_force_sorted(sL, cL, sR, cR, eps, cap, sort_l=sort_l)
     for name, a, b in zip(("cl", "cr", "scores", "totals"),
                           map(np.asarray, got), ref):
@@ -73,20 +89,18 @@ def test_wide_kernel_matches_brute_force(G, W, CL, CR, cap, sort_l):
 
 def test_wide_kernel_unsigned_code_order():
     """Codes with the sign bit set (DNA k=31 half-windows) must sort in
-    UNSIGNED order — the biased compare inside the kernel."""
+    UNSIGNED order — the biased compare of the two-key sort."""
     G, W, CL, CR, cap = 1, 2, 8, 8, 128
     rng = np.random.default_rng(0)
     sL = np.zeros((G, W, CL), np.float32)      # all-tied scores: order is
     sR = np.zeros((G, W, CR), np.float32)      # decided by the codes alone
     cL = (rng.permutation(CL).astype(np.uint32) * np.uint32(0x20000001)
-          ).reshape(G, W // 2 if False else 1, CL).repeat(W, axis=1)
+          ).reshape(G, 1, CL).repeat(W, axis=1)
     cR = (rng.permutation(CR).astype(np.uint32) * np.uint32(0x30000001)
           ).reshape(G, 1, CR).repeat(W, axis=1)
     eps = np.full((G, W), -1.0, np.float32)
-    got = staircase_select_wide(
-        jnp.asarray(sL), jnp.asarray(cL), jnp.asarray(sR), jnp.asarray(cR),
-        jnp.asarray(eps), cap=cap, interpret=True)
-    ref = brute_force_sorted(sL, cL, sR, cR, eps, cap)
+    got = staircase(sL, cL, sR, cR, eps, cap=cap)
+    ref = brute_force_sorted(sL, cL, sR, cR, eps, min(cap, CL * CR))
     for name, a, b in zip(("cl", "cr", "scores", "totals"),
                           map(np.asarray, got), ref):
         np.testing.assert_array_equal(a, b, err_msg=name)
@@ -101,85 +115,28 @@ def test_wide_kernel_overflow_totals():
     cL = np.arange(G * W * CL, dtype=np.uint32).reshape(G, W, CL)
     cR = np.arange(G * W * CR, dtype=np.uint32).reshape(G, W, CR)
     eps = np.full((G, W), -100.0, np.float32)   # everything survives
-    _, _, s, tot = map(np.asarray, staircase_select_wide(
-        jnp.asarray(sL), jnp.asarray(cL), jnp.asarray(sR), jnp.asarray(cR),
-        jnp.asarray(eps), cap=cap, interpret=True))
+    _, _, s, tot = map(np.asarray, staircase(sL, cL, sR, cR, eps, cap=cap))
     assert (tot == CL * CR).all()
     assert np.isfinite(s).all()                  # cap slots all filled
 
 
-@pytest.mark.parametrize("k,sigma,bits,cap,omega", [
-    (6, 4, 2, 512, 1.5),
-    (6, 20, 5, 1024, 4.0),
+@pytest.mark.parametrize("G,W,CL,CR,cap,eps_lo", [
+    (1, 4, 20, 33, 128, -4.5),     # unaligned widths
+    (2, 6, 130, 200, 256, -4.5),   # many empty rows, cap < survivors
+    (1, 5, 300, 40, 384, -7.0),    # every window's total exceeds cap
+    (1, 3, 64, 64, 4096, -3.0),    # cap above the product: C = CL·CR
 ])
-def test_sparse_path_kernel_bitequal_fallback(k, sigma, bits, cap, omega):
-    """enumerate_sparse_many(use_kernel=True) — the production TPU route —
-    must equal the XLA fallback bit-for-bit: same arrays, same slot order
-    (both emit over the identical two-key sorted views)."""
-    rng = np.random.default_rng(k + sigma)
-    G, S = 2, 22
-    p = rng.dirichlet(np.ones(sigma) * 0.4, size=(G, S)).astype(np.float32)
-    P = np.log10(np.maximum(p, 1e-30)).astype(np.float32)
-    prefix = dense.best_score_prefix(P)
-    eps = np.float32(np.log10((omega / sigma) ** k))
-    c0, s0, o0 = sparse_mod.enumerate_sparse_many(
-        P, prefix, eps, k=k, sigma=sigma, bits=bits, cap=cap,
-        use_kernel=False)
-    c1, s1, o1 = sparse_mod.enumerate_sparse_many(
-        P, prefix, eps, k=k, sigma=sigma, bits=bits, cap=cap,
-        use_kernel=True)
-    assert int(np.isfinite(s0).sum()) > 0        # non-vacuous workload
-    np.testing.assert_array_equal(c0, c1)
-    np.testing.assert_array_equal(s0, s1)
-    np.testing.assert_array_equal(o0, o1)
-
-
-def test_wide_kernel_presorted_route():
-    """sort_r=False (the VMEM-relief route for oversize children): inputs
-    pre-sorted in XLA, kernel sorts nothing — output must be identical to
-    the in-kernel-sort call."""
-    rng = np.random.default_rng(9)
-    G, W, CL, CR, cap = 1, 6, 100, 150, 256
-    sL = rng.uniform(-6, 0, (G, W, CL)).astype(np.float32)
-    sR = rng.uniform(-6, 0, (G, W, CR)).astype(np.float32)
-    cL = rng.permutation(CL * W).astype(np.uint32).reshape(G, W, CL)
-    cR = rng.permutation(CR * W).astype(np.uint32).reshape(G, W, CR)
-    eps = rng.uniform(-4.2, -4.0, (G, W)).astype(np.float32)
-    ref = staircase_select_wide(
-        jnp.asarray(sL), jnp.asarray(cL), jnp.asarray(sR), jnp.asarray(cR),
-        jnp.asarray(eps), cap=cap, sort_l=True, interpret=True)
-    cLs, sLs = sparse_mod._sort_desc(jnp.asarray(cL), jnp.asarray(sL))
-    cRs, sRs = sparse_mod._sort_desc(jnp.asarray(cR), jnp.asarray(sR))
-    got = staircase_select_wide(
-        sLs, cLs, sRs, cRs, jnp.asarray(eps), cap=cap,
-        sort_l=False, sort_r=False, interpret=True)
-    for name, a, b in zip(("cl", "cr", "scores", "totals"),
-                          map(np.asarray, got), map(np.asarray, ref)):
-        np.testing.assert_array_equal(a, b, err_msg=name)
-
-
-def test_wide_kernel_compact_r_half_sort():
-    """compact_r: prefix-packed R lists may take the half-width sort
-    network — output must equal the full-sort call on both branches
-    (alive <= half and alive > half blocks)."""
-    rng = np.random.default_rng(21)
-    G, W, CL, CR, cap = 1, 6, 40, 300, 256   # CRp = 512 >= 256
-    sL = rng.uniform(-6, 0, (G, W, CL)).astype(np.float32)
-    sR = np.full((G, W, CR), -np.inf, np.float32)
-    cR = np.zeros((G, W, CR), np.uint32)
-    for w in range(W):
-        # vary live prefix length: some windows far below CRp/2, one above
-        n = 250 if w == 3 else 40 + 10 * w
-        sR[0, w, :n] = rng.uniform(-6, 0, n).astype(np.float32)
-        cR[0, w, :n] = rng.permutation(1000)[:n].astype(np.uint32) + 1
-    cL = rng.permutation(CL * W).astype(np.uint32).reshape(G, W, CL)
-    eps = rng.uniform(-4.4, -4.2, (G, W)).astype(np.float32)
-    args = (jnp.asarray(sL), jnp.asarray(cL), jnp.asarray(sR),
-            jnp.asarray(cR), jnp.asarray(eps))
-    ref = staircase_select_wide(*args, cap=cap, sort_l=False,
-                                interpret=True)
-    got = staircase_select_wide(*args, cap=cap, sort_l=False,
-                                compact_r=True, interpret=True)
+def test_rank_query_matches_membership(G, W, CL, CR, cap, eps_lo):
+    """The rank-query slot lookup is bit-equal to the membership-mask
+    lookup it replaced: codes, scores, slot order and totals."""
+    rng = np.random.default_rng(CL + CR + W)
+    sL, cL, sR, cR = random_lists(rng, G, W, CL, CR)
+    eps = rng.uniform(eps_lo, eps_lo + 0.5, (G, W)).astype(np.float32)
+    got = staircase(sL, cL, sR, cR, eps, cap=cap)
+    ref = staircase(sL, cL, sR, cR, eps, cap=cap,
+                    impl=staircase_membership)
+    if eps_lo <= -7.0:
+        assert (np.asarray(got[3]) > cap).all()
     for name, a, b in zip(("cl", "cr", "scores", "totals"),
                           map(np.asarray, got), map(np.asarray, ref)):
         np.testing.assert_array_equal(a, b, err_msg=name)
